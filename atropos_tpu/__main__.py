@@ -1,12 +1,13 @@
 """``python -m atropos_tpu`` entry point."""
 import sys
 
-from atropos_tpu import check_importability
+from atropos_tpu import check_importability, configure_compile_cache
 from atropos_tpu.commands import execute_cli
 
 
 def main():
     check_importability()
+    configure_compile_cache()
     sys.exit(execute_cli(sys.argv[1:]))
 
 

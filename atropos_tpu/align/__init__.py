@@ -1,8 +1,8 @@
 """Alignment layer: flags, match records, and the insert aligner.
 
 The scalar kernels live in :mod:`atropos_tpu.align.oracle` (the executable
-spec) and the TPU-batched kernels in :mod:`atropos_tpu.align.batched`. This
-package re-exports the scalar API under the same names the rest of the
+spec) and the batched device kernels in :mod:`atropos_tpu.align.batched`.
+This package re-exports the scalar API under the same names the rest of the
 framework uses, mirroring the reference layering
 (``atropos/align/__init__.py``).
 """

@@ -17,7 +17,7 @@ reference's Cython kernels (``atropos/align/_align.pyx``):
 - final-column scan when the last column of the matrix is reached.
 
 It is deliberately simple and unoptimized: it exists to validate the batched
-TPU kernels cell-by-cell and to serve the rare host-side paths (colorspace,
+device kernels cell-by-cell and to serve the rare host-side paths (colorspace,
 debug) where device batching has no payoff.
 """
 

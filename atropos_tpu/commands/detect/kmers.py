@@ -10,9 +10,10 @@ bytes outside ACGTN (or k-mers too long to pack, k > 27) fall back to
 string slicing so observable behavior never changes.
 """
 import functools
-import os
 
 import numpy as np
+
+from atropos_tpu.align import backend
 
 _CODES = np.full(256, 4, np.int64)
 for _i, _base in enumerate(b"ACGT"):
@@ -23,8 +24,8 @@ _VALID = frozenset(_ALPHABET)
 #: largest k such that 5**k fits in int64
 MAX_PACKED_K = 27
 
-#: largest k such that 5**k fits in int32 (device sorts run in int32:
-#: TPU programs default to 32-bit integers)
+#: largest k such that 5**k fits in int32 (device sorts run in int32,
+#: JAX's default integer width)
 MAX_DEVICE_K = 13
 
 #: telemetry: k-mer batches whose sort+count (``batches``) or batched
@@ -33,18 +34,6 @@ DEVICE_KMER_COUNTS = {"batches": 0, "intersect_batches": 0}
 
 _DEVICE_MIN_CODES = 1 << 14
 _SENTINEL32 = np.int32(2 ** 31 - 1)
-
-
-def _device_kmers_enabled():
-    value = os.environ.get("ATROPOS_TPU_DEVICE_KMERS")
-    if value is not None:
-        return value not in ("0", "false", "no")
-    try:
-        import jax
-
-        return jax.default_backend() not in ("cpu",)
-    except Exception:  # pragma: no cover
-        return False
 
 
 @functools.lru_cache(maxsize=None)
@@ -91,7 +80,7 @@ def _unique_counts(flat):
         flat.size >= _DEVICE_MIN_CODES
         and flat.size
         and flat.max() < 2 ** 31 - 1
-        and _device_kmers_enabled()
+        and backend.use_device_kmers()
     ):
         import jax.numpy as jnp
 
@@ -256,7 +245,7 @@ def batch_intersections(contam_sets, read_sets):
         max((int(arr[-1]) for arr in read_sets if arr.size), default=0),
     )
     if (
-        _device_kmers_enabled()
+        backend.use_device_kmers()
         and max_code < 2 ** 31 - 1
         and c_max > 0
         and r_max > 0

@@ -10,9 +10,11 @@ over a queue and merge through the typed summary algebra. Robustness is
 soft: waits log-escalate on timeout instead of killing, and liveness /
 batch-completeness audits surface silent worker deaths.
 
-Forked workers never touch the accelerator — device parallelism is the
-mesh-sharded path (:mod:`atropos_tpu.parallel`), and a forked child must
-not reuse the parent's device runtime.
+Workers never touch the accelerator — device parallelism is the
+mesh-sharded path (:mod:`atropos_tpu.parallel`). Every spawned process
+starts with ``JAX_PLATFORMS=cpu`` in its environment: a JAX process that
+opens a GPU reserves most of its memory, so a worker that reached a
+device path (``--stats`` does) would starve the parent and its peers.
 """
 import heapq
 import inspect
@@ -22,17 +24,33 @@ import os
 import time
 from queue import Empty, Full
 
+from atropos_tpu import AtroposError
+from atropos_tpu.util import run_interruptible
+
 #: spawn-based multiprocessing context: the parent holds a live (threaded)
 #: JAX runtime by the time workers launch, and forking a multi-threaded
 #: process risks deadlocks (and warns on Python 3.12+). Spawned children
 #: start from a clean interpreter and never inherit device state.
 _MP = multiprocessing.get_context("spawn")
-Process = _MP.Process
 Queue = _MP.Queue
 Value = _MP.Value
 
-from atropos_tpu import AtroposError
-from atropos_tpu.util import run_interruptible
+
+class Process(_MP.Process):
+    """A spawned helper process held to the CPU: ``JAX_PLATFORMS=cpu`` is
+    in the environment it starts with (the parent's is restored)."""
+
+    def start(self):
+        saved = os.environ.get("JAX_PLATFORMS")
+        os.environ["JAX_PLATFORMS"] = "cpu"
+        try:
+            super().start()
+        finally:
+            if saved is None:
+                os.environ.pop("JAX_PLATFORMS")
+            else:
+                os.environ["JAX_PLATFORMS"] = saved
+
 
 #: max seconds between retries of a blocked queue operation
 RETRY_INTERVAL = 5

@@ -11,11 +11,11 @@ Summaries render to the exact dict schema of the reference so reports are
 unchanged.
 """
 import functools
-import os
 import re
 
 import numpy as np
 
+from atropos_tpu.align import backend
 from atropos_tpu.util import (
     Histogram,
     Mergeable,
@@ -37,29 +37,16 @@ DEVICE_STATS_COUNTS = {"batches": 0}
 _DEVICE_MIN_BATCH = 256
 
 
-def _device_stats_enabled():
-    """Device-side stat accumulation: forced by ATROPOS_TPU_DEVICE_STATS,
-    defaulting to on for accelerator backends (host numpy wins on CPU)."""
-    value = os.environ.get("ATROPOS_TPU_DEVICE_STATS")
-    if value is not None:
-        return value not in ("0", "false", "no")
-    try:
-        import jax
-
-        return jax.default_backend() not in ("cpu",)
-    except Exception:  # pragma: no cover - jax always importable here
-        return False
-
-
 @functools.lru_cache(maxsize=None)
 def _device_count_fn(width, sharded):
     """Jitted per-position byte-count kernel.
 
-    This is the SURVEY §7.7 design made MXU-shaped: the byte splits into
-    two 4-bit nibbles, each one-hot encoded as int8, and the [W, 256]
-    count matrix is the batched outer product
-    ``counts[w, hi, lo] = sum_b Hi[b, w, hi] * Lo[b, w, lo]`` — W tiny
-    int8 matmuls on the systolic array instead of a host scatter-add.
+    This is the SURVEY §7.7 design as a matrix product: the byte splits
+    into two 4-bit nibbles, each one-hot encoded as int8, and the
+    [W, 256] count matrix is the batched outer product
+    ``counts[w, hi, lo] = sum_b Hi[b, w, hi] * Lo[b, w, lo]`` — W small
+    int8 products with exact int32 accumulation instead of a host
+    scatter-add.
     Padding is masked through the Lo factor. When a device mesh is active
     the batch axis is sharded and the counts psum-reduce across it.
     """
@@ -210,13 +197,13 @@ class PositionByteCounts(Mergeable, Summarizable):
     def add_batch(self, matrix, lengths):
         """Accumulate a padded ``[B, L]`` byte matrix, masking padding.
 
-        Large batches on accelerator backends count on device (MXU
-        nibble outer products, psum-reduced over the mesh — see
+        Large batches on GPU backends count on device (int8 nibble
+        outer products, psum-reduced over the mesh — see
         :func:`_device_count_fn`); small batches and CPU backends use a
         host bincount."""
         width = matrix.shape[1]
         self.counts = _grow_rows(self.counts, width)
-        if matrix.shape[0] >= _DEVICE_MIN_BATCH and _device_stats_enabled():
+        if matrix.shape[0] >= _DEVICE_MIN_BATCH and backend.use_device_stats():
             self.counts[:width] += _device_position_counts(matrix, lengths)
             return
         valid = np.arange(width)[None, :] < lengths[:, None]

@@ -1,7 +1,7 @@
 """Batched device engine for the trim pipeline.
 
 Replaces the per-read scalar adapter matching (the pipeline's hot loop)
-with one batched TPU kernel invocation per (adapter, batch): the whole
+with one batched device kernel invocation per (adapter, batch): the whole
 record batch is encoded once into a padded uint8 tensor, every adapter's
 semi-global DP runs on device over all reads simultaneously, and the
 results are injected back into the unchanged host modifier chain
@@ -80,34 +80,16 @@ def engine_enabled():
 
 
 def make_batch_aligner(adapter):
-    """Device aligner for one adapter: the Pallas kernel on accelerator
-    backends (whole column loop on-chip), the XLA scan kernel on CPU or
-    when forced with ``ATROPOS_TPU_PALLAS=0``. Both are bit-exact vs the
-    scalar oracle; this is purely a performance dispatch."""
-    kwargs = dict(
+    """Device aligner for one adapter: the XLA scan kernel, bit-exact vs
+    the scalar oracle."""
+    return BatchAligner(
+        adapter.sequence,
+        adapter.max_error_rate,
+        adapter.where,
         wildcard_ref=adapter.adapter_wildcards,
         wildcard_query=adapter.read_wildcards,
         min_overlap=adapter.min_overlap,
         indel_cost=(adapter.aligner.indel_cost if adapter.indels else 100000),
-    )
-    use_pallas = os.environ.get("ATROPOS_TPU_PALLAS")
-    if use_pallas is None:
-        try:
-            import jax
-
-            use_pallas = jax.default_backend() not in ("cpu",)
-        except Exception:
-            use_pallas = False
-    else:
-        use_pallas = use_pallas not in ("0", "false", "no")
-    if use_pallas:
-        from atropos_tpu.align.pallas_kernel import PallasAligner
-
-        return PallasAligner(
-            adapter.sequence, adapter.max_error_rate, adapter.where, **kwargs
-        )
-    return BatchAligner(
-        adapter.sequence, adapter.max_error_rate, adapter.where, **kwargs
     )
 
 

@@ -1,6 +1,6 @@
 """Multi-host scale-out over the JAX distributed runtime.
 
-This is the TPU-native replacement for the reference's fork+Queue
+This is the device-runtime replacement for the reference's fork+Queue
 parallelism (``atropos/commands/multicore.py``; architecture narrative at
 ``atropos/commands/trim/__init__.py:693-750``). The mapping:
 
@@ -11,12 +11,13 @@ parallelism (``atropos/commands/multicore.py``; architecture narrative at
   serial/turbo pipeline and device kernels);
 - parallel-write mode        -> per-host output shard files
   (``output.<rank>``), the reference's fastest mode;
-- pickled-summary Queue      -> byte-tensor allgather over the Gloo/ICI
-  collective fabric, merged with the same ``merge_dicts`` algebra.
+- pickled-summary Queue      -> byte-tensor allgather over the
+  collective fabric (Gloo on CPU hosts, NCCL between GPUs), merged with
+  the same ``merge_dicts`` algebra.
 
 Activation: run one process per host with ``jax.distributed.initialize``
-(auto-configured on TPU pods; explicit coordinator/rank arguments
-elsewhere — see :func:`initialize`), then invoke the normal CLI. The trim
+(explicit coordinator/rank arguments — see :func:`initialize`), then
+invoke the normal CLI. The trim
 command detects ``jax.process_count() > 1`` and shards automatically.
 """
 import logging
@@ -29,8 +30,8 @@ def initialize(coordinator=None, num_processes=None, process_id=None,
                local_device_ids=None):
     """Initialize the JAX distributed runtime.
 
-    On TPU pods all arguments are auto-detected; on CPU/GPU clusters pass
-    ``coordinator`` ("host:port"), ``num_processes`` and ``process_id``.
+    Pass ``coordinator`` ("host:port"), ``num_processes`` and
+    ``process_id``: nothing on a CPU or GPU cluster tells JAX of them.
     Safe to call when already initialized (no-op)."""
     import jax
 

@@ -1,35 +1,71 @@
 """Native runtime: C++ FASTQ parser/formatter with ctypes bindings.
 
-Compiles ``fastq.cpp`` on first import (cached as ``libfastq.so`` next to
-the source; rebuilt when the source is newer). Falls back to None exports
-if no compiler is available — callers must then use the Python I/O path.
+Compiles ``fastq.cpp`` on first import into ``_build/`` next to the
+source (git-ignored). The library's file name carries a key of what
+built it — the source, the compiler command and the host CPU — so a
+checkout copied to another machine, or an edited source, builds afresh
+instead of loading a library made for another CPU. Falls back to None
+exports if no compiler is available — callers must then use the Python
+I/O path.
 """
 import ctypes
+import hashlib
 import logging
 import os
+import platform
 import subprocess
 
 import numpy as np
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_HERE, "fastq.cpp")
-_LIB = os.path.join(_HERE, "libfastq.so")
+_BUILD_DIR = os.path.join(_HERE, "_build")
+_FLAGS = ("-O3", "-march=native", "-shared", "-fPIC")
 
 
-def _build():
-    cmd = [
-        "g++", "-O3", "-march=native", "-shared", "-fPIC", _SRC, "-o", _LIB,
-    ]
+def _host_cpu():
+    """What ``-march=native`` resolves against: the CPU model and its
+    feature flags (Linux), else the platform's processor string."""
+    try:
+        with open("/proc/cpuinfo") as handle:
+            lines = [
+                line for line in handle
+                if line.startswith(("model name", "flags"))
+            ]
+        return "".join(lines[:2])
+    except OSError:
+        return platform.processor() + platform.machine()
+
+
+def library_path(source=_SRC, flags=_FLAGS, cpu=None):
+    """The keyed path of the library built from ``source`` with
+    ``flags`` on this CPU."""
+    digest = hashlib.sha256()
+    with open(source, "rb") as handle:
+        digest.update(handle.read())
+    digest.update(" ".join(flags).encode())
+    digest.update((_host_cpu() if cpu is None else cpu).encode())
+    return os.path.join(
+        _BUILD_DIR, "libfastq-%s.so" % digest.hexdigest()[:16]
+    )
+
+
+def _build(lib_path):
+    """Compile to a private name, then move into place atomically, so
+    concurrent first imports never load a half-written library."""
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    tmp = "%s.%d.tmp" % (lib_path, os.getpid())
+    cmd = ["g++"] + list(_FLAGS) + [_SRC, "-o", tmp]
     subprocess.run(cmd, check=True, capture_output=True)
+    os.replace(tmp, lib_path)
 
 
 def _load():
     try:
-        if not os.path.exists(_LIB) or os.path.getmtime(_LIB) < os.path.getmtime(
-            _SRC
-        ):
-            _build()
-        lib = ctypes.CDLL(_LIB)
+        lib_path = library_path()
+        if not os.path.exists(lib_path):
+            _build(lib_path)
+        lib = ctypes.CDLL(lib_path)
     except Exception as exc:  # pragma: no cover - no toolchain
         logging.getLogger(__name__).warning(
             "native fastq runtime unavailable (%s); using Python I/O", exc

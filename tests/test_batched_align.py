@@ -1,4 +1,4 @@
-"""Differential parity tests: batched TPU kernels vs the scalar oracle.
+"""Differential parity tests: batched XLA kernels vs the scalar oracle.
 
 Randomized reads/adapters across every adapter type (flag combination),
 wildcard mode, and indel-cost regime; results must be identical per read.

@@ -146,21 +146,10 @@ def test_engine_big_matches_scalar(tmp_path, monkeypatch):
         assert scalar_data == engine_data
 
 
-def test_engine_pallas_dispatch(tmp_path, monkeypatch):
-    """ATROPOS_TPU_PALLAS=1 routes engine matching through the Pallas
-    kernel (interpret mode on CPU); output must stay byte-identical."""
-    from atropos_tpu.align.pallas_kernel import PallasAligner
-
-    monkeypatch.setenv("ATROPOS_TPU_ENGINE", "1")
-    monkeypatch.setenv("ATROPOS_TPU_PALLAS", "1")
-    monkeypatch.setattr(PallasAligner, "INTERPRET", True)
-    run_trim(tmp_path, "-b TTAGACATATCTCCGTCG", "small.fastq", "small.fastq")
-
-
 def test_linked_and_times_run_batched(tmp_path, monkeypatch):
     """Linked adapters and --times rounds must go through the batched
-    matcher, not per-read scalar match_to (VERDICT r4 item 6): the
-    engine's MATCH_COUNTS telemetry proves which path ran."""
+    matcher, not per-read scalar match_to: the engine's MATCH_COUNTS
+    telemetry proves which path ran."""
     import os
 
     from atropos_tpu import engine as engine_mod

@@ -1,43 +1,29 @@
-"""Differential parity tests: Pallas DP kernel vs the scalar oracle.
-
-Runs in Pallas interpret mode on CPU (exact same program the TPU runs,
-minus Mosaic codegen)."""
+"""Differential parity tests: the XLA column scan (``BatchAligner``) vs
+the scalar oracle, on the cases that stress the insertion window's edges,
+wildcards and literal ``N`` bytes; and the insert matcher's diagonal
+counts vs a host count."""
 import random
 
 import numpy as np
 import pytest
 
-import jax
-
 from atropos_tpu.align import oracle
-from atropos_tpu.align.batched import encode_reads
+from atropos_tpu.align.batched import BatchAligner, encode_reads
 from .test_batched_align import FLAG_CASES, PREFIX, SUFFIX, _random_read
 
 
-def _make_pallas(aligner_args):
-    from atropos_tpu.align import pallas_kernel
-
-    cls = pallas_kernel.PallasAligner
-    obj = cls(
-        aligner_args["reference"],
-        aligner_args["max_error_rate"],
-        aligner_args["flags"],
-        wildcard_ref=aligner_args.get("wildcard_ref", False),
-        wildcard_query=aligner_args.get("wildcard_query", False),
-        min_overlap=aligner_args.get("min_overlap", 1),
-        indel_cost=aligner_args.get("indel_cost", 1),
+def _make_scan(aligner_args):
+    args = dict(aligner_args)
+    return BatchAligner(
+        args.pop("reference"), args.pop("max_error_rate"), args.pop("flags"),
+        **args
     )
-    if jax.default_backend() == "cpu":
-        # interpret mode for CPU testing
-        obj.INTERPRET = True
-    return obj
 
 
 def _assert_parity(aligner_args, reads, label):
     scalar = oracle.Aligner(**aligner_args)
-    pallas = _make_pallas(aligner_args)
     arr, lengths = encode_reads(reads)
-    out = pallas.locate_batch(arr, lengths)
+    out = _make_scan(aligner_args).locate_batch(arr, lengths)
     out = {key: np.asarray(val) for key, val in out.items()}
     for idx, read in enumerate(reads):
         expected = scalar.locate(read)
@@ -70,7 +56,7 @@ def test_pallas_parity(name, flags, indel_cost):
             indel_cost=indel_cost,
         ),
         reads,
-        "pallas/{}/ic{}".format(name, indel_cost),
+        "scan/{}/ic{}".format(name, indel_cost),
     )
 
 
@@ -88,17 +74,17 @@ def test_pallas_parity_wildcards(name, flags):
             min_overlap=3,
         ),
         reads,
-        "pallas-wc/" + name,
+        "scan-wc/" + name,
     )
 
 
 @pytest.mark.parametrize("max_error_rate", [0.0, 0.049, 0.2, 0.34])
 @pytest.mark.parametrize("indel_cost", [1, 2, 3])
 def test_pallas_scan_window_edges(max_error_rate, indel_cost):
-    """The insertion scan is truncated to distance floor(k/ins_cost); pin
-    bit-exactness at the window boundaries with reads whose adapter hit
-    carries insertion runs of exactly k, k+1 and 2k bases (chains at and
-    just past the provable out-of-band cutoff)."""
+    """Pin bit-exactness where insertion chains reach the error band's
+    edge: reads whose adapter hit carries insertion runs of exactly k,
+    k+1 and 2k bases (chains at and just past distance floor(k/ins_cost),
+    beyond which no chain can stay within k)."""
     adapter = "AGATCGGAAGAGCACACGTCTGAACTCCAGTCA"  # m=33 -> k up to 11
     k = int(max_error_rate * len(adapter))
     rng = random.Random(hash((max_error_rate, indel_cost)) & 0xFFFF)
@@ -120,7 +106,7 @@ def test_pallas_scan_window_edges(max_error_rate, indel_cost):
             indel_cost=indel_cost,
         ),
         reads,
-        "pallas-window/e{}/ic{}".format(max_error_rate, indel_cost),
+        "scan-window/e{}/ic{}".format(max_error_rate, indel_cost),
     )
 
 
@@ -134,92 +120,55 @@ def test_pallas_literal_n():
             min_overlap=3,
         ),
         ["ACGTNNNNNNACGT", "NNNNNN", "ACGTACGT"],
-        "pallas-literalN",
+        "scan-literalN",
     )
 
 
-def test_pallas_insert_counts_match_xla():
-    """The Pallas diagonal match-count kernel (insert matcher core) must
-    equal the XLA scan exactly (interpret mode on CPU)."""
-    import numpy as np
-
-    import jax.numpy as jnp
-
-    from atropos_tpu.align.batched import _diagonal_match_counts
-    from atropos_tpu.align.pallas_kernel import PallasInsertMatcher
-
-    rng = np.random.default_rng(5)
-    W, B = 64, 256
-    bases = np.frombuffer(b"ACGT", np.uint8)
-    refs = bases[rng.integers(0, 4, size=(W, B))].astype(np.int32)
-    queries = bases[rng.integers(0, 4, size=(W, B))].astype(np.int32)
-    # make some diagonals real matches
-    queries[:, :64] = refs[:, :64]
-    lengths = rng.integers(0, W + 1, size=(1, B)).astype(np.int32)
-
-    matcher = PallasInsertMatcher()
-    matcher.INTERPRET = True
-    matcher.BLOCK = 128
-    got = np.asarray(
-        matcher.counts(
-            jnp.asarray(refs), jnp.asarray(queries), jnp.asarray(lengths)
-        )
-    )
-    want = np.asarray(
-        _diagonal_match_counts(
-            jnp.asarray(refs), jnp.asarray(queries), jnp.asarray(lengths)
-        )
-    )
-    assert np.array_equal(got, want)
+@pytest.mark.gpu
+@pytest.mark.parametrize("read_len", [100, 150])
+def test_card_scan_matches_oracle(read_len):
+    """On the card: the XLA scan compiled for the GPU, run on a full turbo
+    batch of planted-adapter reads, equals the oracle on a sample."""
+    flags = FLAG_CASES[0][1]
+    adapter = "AGATCGGAAGAGCACACGTCTGAACTCCAGTCA"
+    rng = random.Random(read_len)
+    reads = [
+        _random_read(rng, adapter, flags, min_len=read_len // 2,
+                     max_len=read_len)
+        for _ in range(32768)
+    ]
+    args = dict(reference=adapter, max_error_rate=0.1, flags=flags,
+                min_overlap=3)
+    arr, lengths = encode_reads(reads)
+    out = _make_scan(args).locate_batch(arr, lengths)
+    assert np.asarray(out["found"]).shape == (32768,)
+    _assert_parity(args, reads[:512], "card/%d" % read_len)
 
 
 @pytest.mark.parametrize("W", [33, 64, 100, 255])
 def test_packed_insert_counts_match_xla(W):
-    """The bit-packed diagonal matcher (4-bit codes, 8/word, sentinel
-    out-of-range handling, packed-4 output) must equal the XLA scan
-    exactly, across widths incl. non-multiples of 8 and varied
-    alphabets (interpret mode on CPU)."""
-    import numpy as np
-
+    """The insert matcher's diagonal counts (the XLA scan) must equal the
+    host count exactly, across widths incl. non-multiples of 8, varied
+    alphabets and lengths from 0 to W."""
     import jax.numpy as jnp
 
     from atropos_tpu.align.batched import _diagonal_match_counts
-    from atropos_tpu.align.pallas_kernel import PallasPackedInsertMatcher
+    from atropos_tpu.engine.turbo import _InsertPair
 
     rng = np.random.default_rng(W)
     B = 256
     alphabet = np.frombuffer(b"ACGTNacgtn", np.uint8)
-    refs = alphabet[rng.integers(0, len(alphabet), size=(W, B))].astype(
-        np.int32
-    )
-    queries = alphabet[rng.integers(0, len(alphabet), size=(W, B))].astype(
-        np.int32
-    )
+    refs = alphabet[rng.integers(0, len(alphabet), size=(W, B))]
+    queries = alphabet[rng.integers(0, len(alphabet), size=(W, B))]
     queries[:, :32] = refs[:, :32]
     lengths = rng.integers(0, W + 1, size=(1, B)).astype(np.int32)
 
-    matcher = PallasPackedInsertMatcher(alphabet)
-    matcher.INTERPRET = True
-    matcher.BLOCK = 128
-    assert matcher.usable(W)
     got = np.asarray(
-        matcher.counts(
-            jnp.asarray(refs), jnp.asarray(queries), jnp.asarray(lengths)
-        )
-    )
-    want = np.asarray(
         _diagonal_match_counts(
-            jnp.asarray(refs), jnp.asarray(queries), jnp.asarray(lengths)
+            jnp.asarray(refs.astype(np.int32)),
+            jnp.asarray(queries.astype(np.int32)),
+            jnp.asarray(lengths),
         )
     )
+    want = _InsertPair._host_counts(refs.T, queries.T, lengths[0])
     assert np.array_equal(got, want)
-
-
-def test_packed_insert_matcher_usability_gates():
-    from atropos_tpu.align.pallas_kernel import PallasPackedInsertMatcher
-
-    small = PallasPackedInsertMatcher(b"ACGTN")
-    assert small.usable(255)
-    assert not small.usable(256)  # counts must fit a byte
-    wide = PallasPackedInsertMatcher(bytes(range(40, 60)))  # 20 symbols
-    assert not wide.usable(100)

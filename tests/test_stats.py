@@ -95,7 +95,7 @@ def test_stats_merge_associative():
 
 
 def test_device_position_counts_matches_host(monkeypatch):
-    """The MXU nibble-outer-product count kernel must agree exactly with
+    """The int8 nibble-outer-product count kernel must agree exactly with
     the host bincount, with the batch sharded over the device mesh and
     the counts psum-reduced across it."""
     import os

@@ -1,83 +1,72 @@
-"""End-to-end turbo trim perf probe (real device).
+"""End-to-end trim times through the CLI, and where the time goes.
 
-Generates a synthetic FASTQ (same composition as bench.py: 100 bp reads,
-50% carrying the TruSeq adapter at a random position), runs the full trim
-command through the turbo path (parse -> device kernels -> format ->
-bytes), and prints a phase breakdown so the host/device split is visible.
+Writes the seeded inputs of ``chip_smoke.py`` phase 3 (SE 100 bp reads,
+PE 125 bp pairs) and times each of its four trims (SE ``-a``, PE
+``--aligner adapter``, PE ``--aligner insert``, SE ``-q 20``): one
+compiling prefix run, then ``--repeat`` full runs, each printed as a
+single-run figure.
 
-Usage: python tools/perf_e2e.py [n_reads]
+    python tools/perf_e2e.py [--se N] [--pe N] [--repeat N] [--profile FILE]
+
+``--profile FILE`` also writes a cProfile (cumulative, top 60) of one
+full run of each trim to FILE, so the host/device split is visible.
 """
+import argparse
 import cProfile
 import io
 import os
 import pstats
-import random
 import sys
+import tempfile
 import time
 
-os.environ.setdefault(
-    "JAX_COMPILATION_CACHE_DIR",
-    os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                 ".jax_cache"),
-)
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-
-ADAPTER = "AGATCGGAAGAGCACACGTCTGAACTCCAGTCA"
-READ_LEN = 100
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, REPO)
 
 
-def make_fastq(path, n_reads, seed=0):
-    rng = random.Random(seed)
-    qual = "I" * READ_LEN
-    with open(path, "w") as fh:
-        for i in range(n_reads):
-            read = "".join(rng.choice("ACGT") for _ in range(READ_LEN))
-            if rng.random() < 0.5:
-                pos = rng.randrange(20, READ_LEN - 5)
-                alen = min(len(ADAPTER), READ_LEN - pos)
-                read = (read[:pos] + ADAPTER[:alen] + read[pos + alen:])[:READ_LEN]
-            fh.write("@read{}\n{}\n+\n{}\n".format(i, read, qual))
+def _profile(run):
+    prof = cProfile.Profile()
+    prof.enable()
+    run()
+    prof.disable()
+    stream = io.StringIO()
+    pstats.Stats(prof, stream=stream).sort_stats("cumulative").print_stats(60)
+    return stream.getvalue()
 
 
-def main():
-    n_reads = int(sys.argv[1]) if len(sys.argv) > 1 else 1_000_000
-    profile = "--profile" in sys.argv
-    tmp = "/tmp/perf_e2e"
-    os.makedirs(tmp, exist_ok=True)
-    inp = os.path.join(tmp, "in_{}.fastq".format(n_reads))
-    out = os.path.join(tmp, "out.fastq")
-    if not os.path.exists(inp):
-        t0 = time.time()
-        make_fastq(inp, n_reads)
-        print("generate: %.1fs" % (time.time() - t0))
+def main(argv=None):
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--se", type=int, default=1_000_000)
+    parser.add_argument("--pe", type=int, default=500_000)
+    parser.add_argument("--repeat", type=int, default=2)
+    parser.add_argument("--profile", metavar="FILE")
+    args = parser.parse_args(argv)
 
-    from atropos_tpu.commands import execute_cli
+    from atropos_tpu import configure_compile_cache
 
-    argv = ["trim", "-se", inp, "-a", ADAPTER, "-o", out,
-            "--no-default-adapters", "-q", "0", "--report-file",
-            os.path.join(tmp, "report.txt"), "--quiet"]
-    # warm: compile kernels on a small slice
-    warm_in = os.path.join(tmp, "warm.fastq")
-    if not os.path.exists(warm_in):
-        make_fastq(warm_in, 20000, seed=1)
-    execute_cli(["trim", "-se", warm_in, "-a", ADAPTER, "-o", out,
-                 "--no-default-adapters", "--report-file",
-                 os.path.join(tmp, "report.txt"), "--quiet"])
+    configure_compile_cache()
+    import chip_smoke
 
-    t0 = time.time()
-    if profile:
-        prof = cProfile.Profile()
-        prof.enable()
-    rc = execute_cli(["trim", "-se", inp, "-a", ADAPTER, "-o", out,
-                      "--no-default-adapters", "--report-file",
-                      os.path.join(tmp, "report.txt"), "--quiet"])
-    dt = time.time() - t0
-    if profile:
-        prof.disable()
-        stream = io.StringIO()
-        pstats.Stats(prof, stream=stream).sort_stats("cumulative").print_stats(30)
-        print(stream.getvalue())
-    print("rc=%s  %.2fs  %.2fM reads/s end-to-end" % (rc, dt, n_reads / dt / 1e6))
+    reports = []
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        paths = chip_smoke.write_inputs(tmp, args.se, args.pe)
+        print("inputs written in %.1f s" % (time.perf_counter() - t0))
+        for label, build, mode, unit in chip_smoke.trim_runs(paths, tmp):
+            count = args.se if mode == "se" else args.pe
+            chip_smoke._trim(build(False, "warm")[0])
+            argv_full = build(True, "full")[0]
+            for _ in range(args.repeat):
+                seconds = chip_smoke._trim(argv_full)
+                print("e2e %s: %d %s in %.3f s = %.0f %s/s" % (
+                    label, count, unit, seconds, count / seconds, unit
+                ), flush=True)
+            if args.profile:
+                reports.append("== %s\n" % label + _profile(
+                    lambda: chip_smoke._trim(argv_full)))
+    if args.profile:
+        with open(args.profile, "w") as handle:
+            handle.write("\n".join(reports))
 
 
 if __name__ == "__main__":
